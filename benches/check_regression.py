@@ -14,8 +14,7 @@ Default mode is the CONJUNCTION: a cell fails only when it regresses in
 BOTH absolute seconds and drift-normalized terms (each cell divided by the
 run's median hot analytical cell). Each signal alone has a measured
 failure mode on this infrastructure — absolute flags uniform machine noise
-(shared-VM CPU timings scatter 1.0-2.2x run to run; TPU chips drift
-±25-30% between hours), normalized flags every OTHER cell when a code
+(shared-VM CPU timings scatter 1.0-2.2x run to run), normalized flags every OTHER cell when a code
 change genuinely moves the normalizer cell itself (observed when a 141x
 kvaerno5 win shifted the stiff matrix normalizer). A genuine single-cell
 regression fails both. --absolute / --normalized select a single signal

@@ -30,6 +30,10 @@ def main() -> int:
 
     import jax.numpy as jnp
 
+    from pharmsol_tpu.config import enable_compilation_cache
+
+    enable_compilation_cache()
+
     from pharmsol_tpu import ODE, Subject
     from pharmsol_tpu.dsl import compile_model, load_runtime_artifact, save_artifact
 

@@ -2,7 +2,7 @@
  *
  * The reference proves its portable tier in a browser (browser-compile-bridge/
  * README.md:1-18 exposes the DSL compiler to browsers; tests/browser-e2e/
- * run.mjs executes the WASM bundle in a page). The TPU rebuild's portable
+ * run.mjs executes the WASM bundle in a page). This rebuild's portable
  * artifact is plain JSON (`.pkm`, dsl/runtime.py save_artifact), and this
  * file is the browser analogue of the reference's JS loader
  * (src/dsl/wasm_compile.rs:30-43 bundle = bytes + metadata + JS loader):

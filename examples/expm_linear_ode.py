@@ -5,8 +5,8 @@ linear: dx/dt = A(p, cov) x + u with A constant between events (parameters
 fixed, infusion rates piecewise-constant). Adaptive steppers integrate those
 numerically; `with_solver("expm")` instead computes the exact segment
 solution via the affine-block matrix exponential — no step loop, no
-tolerance error, and (on TPU) faster than adaptive stepping because vmapped
-population lanes never wait on each other's step counts.
+tolerance error, and vmapped population lanes never wait on each other's
+step counts.
 
 Here: a 4-compartment mammillary model with a transit absorption chain —
 not one of the built-in kernels, but linear.

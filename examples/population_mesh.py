@@ -1,8 +1,9 @@
-"""Population psi matrix on a device mesh — the TPU-native showcase.
+"""Population psi matrix on a device mesh.
 
 No reference counterpart: this is what the rebuild is for. A 2-cmt oral
 population evaluated as one jitted program over (subjects x support points),
-sharded across every available device.
+sharded across every available device (GPUs, or virtual CPU devices via
+``XLA_FLAGS=--xla_force_host_platform_device_count=N``).
 """
 
 import sys

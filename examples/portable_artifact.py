@@ -1,6 +1,6 @@
 """Portable artifact story: one model, three execution tiers.
 
-The reference ships models to foreign hosts as WASM bundles; the TPU rebuild
+The reference ships models to foreign hosts as WASM bundles; this rebuild
 replaces that with (docs/DSL.md "Portable artifacts"):
 
 1. the jitted engine (production, any XLA device),

@@ -1,4 +1,4 @@
-"""pharmsol-tpu: a TPU-native PK/PD simulation engine.
+"""pharmsol-tpu: a JAX PK/PD simulation engine.
 
 A ground-up JAX/XLA rebuild of the capabilities of LAPKB/pharmsol
 (reference mounted at /root/reference): closed-form analytical models,

@@ -14,7 +14,7 @@ Parity with /root/reference/src/data/covariate.rs:
 The host-side objects here are only the authoring surface. For the engine,
 :meth:`Covariates.lower` packs every covariate into padded knot arrays
 (times + values + fixed flags) that a jitted ``interpolate`` evaluates with a
-vectorized searchsorted — the TPU-native replacement for the reference's
+vectorized searchsorted — the batched replacement for the reference's
 per-segment linear scan.
 """
 

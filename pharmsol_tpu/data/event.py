@@ -14,7 +14,7 @@ Behavioral parity with the reference event layer
 
 Events are plain Python dataclasses: they only exist host-side. The engine
 never touches them — subjects are lowered once into padded numpy arrays (see
-``pharmsol_tpu.engine.grid``), which is where the TPU-native design departs
+``pharmsol_tpu.engine.grid``), which is where the batched design departs
 from the reference's per-event dynamic loop.
 """
 

@@ -4,7 +4,7 @@ Parity: every reference data type derives serde ``Serialize/Deserialize``
 (/root/reference/src/data/structs.rs:37,351; covariate.rs:322;
 event.rs:106-114; error_model.rs; nca/types.rs NCAResult) so PMcore-style
 callers can persist populations and results. This module is the interchange
-format for the TPU rebuild: plain-JSON dicts with a ``schema`` version tag at
+format for this rebuild: plain-JSON dicts with a ``schema`` version tag at
 the ``Data`` / ``NCAResult`` roots, round-trip-stable (build -> dump -> load
 -> identical content hash).
 

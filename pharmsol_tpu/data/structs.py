@@ -11,7 +11,7 @@ Parity with /root/reference/src/data/structs.rs:
 - dense-grid expansion ``expand(idelta, tad)`` in integer microseconds
   (structs.rs:155-255).
 
-In the TPU rebuild, ``process_events`` with parameter-dependent lag/fa is
+In this rebuild, ``process_events`` with parameter-dependent lag/fa is
 *not* executed host-side per support point — the engine folds lag/fa into the
 in-jit event-grid construction (engine/grid.py). The host-side version here
 exists for API parity, host-side tooling (expand, NCA), and as a slow oracle

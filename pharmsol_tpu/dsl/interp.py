@@ -1,6 +1,6 @@
 """Trace-time interpreter: DSL statements -> traced JAX values.
 
-This is the TPU-native replacement for the reference's Cranelift JIT
+This is the jit-traced replacement for the reference's Cranelift JIT
 (src/dsl/jit.rs): instead of lowering the ExecutionModel IR to machine code,
 the IR is walked once inside ``jax.jit`` tracing, producing a jaxpr. After
 tracing there is zero interpretation overhead — XLA compiles the same fused

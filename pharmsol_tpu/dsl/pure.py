@@ -1,7 +1,7 @@
 """Pure-Python `.pkm` evaluator: the portable-target replacement for WASM.
 
 The reference ships models to foreign hosts as WASM bundles
-(src/dsl/wasm_compile.rs:30-43) executed by wasmtime or a browser. The TPU
+(src/dsl/wasm_compile.rs:30-43) executed by wasmtime or a browser. This
 rebuild's portable story has two tiers:
 
 1. **StableHLO** (`ops/export.py`): ahead-of-time device code via

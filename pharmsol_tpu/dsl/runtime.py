@@ -241,30 +241,6 @@ class _RoleBuilder:
                 dest[input_index] = d
         return dest
 
-    def make_kernel_inputs(self):
-        """Kernel-parameter mapping for the pallas psi fast path.
-
-        Same binding resolution as make_analytical_propagate, but evaluated
-        at a caller-chosen time — likelihood/matrix._decompose_kernel_inputs
-        probes it to build the anchored kernel support + multiplier streams.
-        """
-        am = self.am
-        plan = am.kernel_plan
-
-        def kernel_inputs(p, t, cov):
-            env = self.derived_env(p, t, cov)
-            vals = []
-            for source, index in plan.bindings:
-                if source == "primary":
-                    vals.append(p[index])
-                elif source == "covariate":
-                    vals.append(cov(am.covariates[index][0], t))
-                else:
-                    vals.append(env[am.derived[index]])
-            return vals
-
-        return kernel_inputs
-
 
 class _DslAnalytical(Analytical):
     """Analytical equation backed by DSL role closures (needs segment t0)."""
@@ -282,10 +258,6 @@ class _DslAnalytical(Analytical):
         )
         self._builder = builder
         self._metadata = metadata
-        # pallas psi fast-path hooks (likelihood/matrix._PallasPsiPlan)
-        self._pallas_structure = builder.am.analytical_kernel
-        self._kernel_inputs = builder.make_kernel_inputs()
-        self._bolus_dest = builder.make_bolus_dest()
 
     def _build_spec(self) -> ModelSpec:
         b = self._builder

@@ -204,8 +204,8 @@ def _three_cmt_core(x3, k10, k12, k13, k21, k31, t, rate):
             jnp.stack([c19 * e1 + c20 * e2 + c21 * e3, c22 * e1 + c23 * e2 + c24 * e3, c25 * e1 + c26 * e2 + c27 * e3]),
         ]
     )
-    # full-precision: TPU matmuls default to bf16 passes, which would cost
-    # ~3 decimal digits on the spectral-projector propagation
+    # full-precision: a default-precision f32 matmul may run reduced-precision
+    # passes (TF32 on the GPU), which would cost ~3 decimal digits on the spectral-projector propagation
     hom = jnp.matmul(m, x3, precision=jax.lax.Precision.HIGHEST)
     inf = jnp.stack(
         [

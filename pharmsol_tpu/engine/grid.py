@@ -1,6 +1,6 @@
 """Event-grid lowering: Subject timelines -> padded arrays -> lax.scan segments.
 
-This is the load-bearing TPU-native design element with no reference
+This is the load-bearing design element with no reference
 counterpart. The reference walks each subject's events in a dynamic Rust loop
 (equation/mod.rs:480-516 ``simulate_subject_dense``), splitting each
 inter-event span at infusion boundaries (analytical/mod.rs:298-370 ``solve``).

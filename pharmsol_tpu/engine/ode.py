@@ -100,12 +100,11 @@ class ODEOptions(NamedTuple):
     max_steps: int = DEFAULT_MAX_STEPS
     solver: str = "dopri5"  # see _SEGMENT_SOLVERS for the full menu
     newton_iters: int = 6
-    # trial steps per while_loop iteration (explicit methods). The tiny
-    # nstates RHS makes each loop iteration overhead-dominated on TPU;
-    # unrolling amortizes that overhead over several masked steps (steps
-    # past t1 are where'd out, costing only redundant flops — a win on TPU,
-    # pure waste on CPU). None = 4 on TPU, 1 elsewhere, resolved lazily.
-    unroll: Optional[int] = None
+    # trial steps per while_loop iteration (explicit methods): unrolling
+    # amortizes loop overhead over several masked steps (steps past t1 are
+    # where'd out, costing only redundant flops). 1 unless set; not measured
+    # on the GPU.
+    unroll: int = 1
 
 
 def _error_ratio(err, x0, x1, rtol, atol):
@@ -134,7 +133,7 @@ def _h_stalled(h, t):
     ``h < ulp(t)``, ``t + h == t`` and the loop would spin to ``max_steps``
     with zero progress. Under vmap that single lane stalls the WHOLE batch
     for 10k masked iterations — at population scale (32k lanes) that is
-    minutes of device time and trips the TPU watchdog. The exact
+    minutes of device time. The exact
     no-progress test (not an eps heuristic, so it can never misfire on a
     legitimately small step) bails out within ~25 shrink iterations; the
     lane is then poisoned by ``_poison_if_unfinished``.
@@ -219,12 +218,8 @@ def _erk_segment(f: Callable, x0, t0, t1, opts: ODEOptions, A, B, E, C,
         hmax = jnp.where(accept, jnp.maximum(hmax, h_try), hmax)
         return (t, x, h, k1, steps + jnp.where(done, 0, 1), hmax)
 
-    unroll = opts.unroll
-    if unroll is None:
-        unroll = 4 if jax.default_backend() == "tpu" else 1
-
     def body(carry):
-        for _ in range(max(1, int(unroll))):
+        for _ in range(max(1, int(opts.unroll))):
             carry = one_trial(carry)
         return carry
 
@@ -303,10 +298,9 @@ _KV5_BHAT = _KV5_A[5] + (0.0,)
 def _dense_solve(A, b):
     """Gauss-Jordan with partial pivoting, unrolled over the static size.
 
-    ``jnp.linalg.solve`` lowers to LU custom calls that this environment's
-    TPU compile helper rejects in float64; the Newton systems here are tiny
-    (nstates-sized), so an unrolled elimination in pure elementwise ops is
-    both portable and faster than the general LU path.
+    The Newton systems here are tiny (nstates-sized), so an unrolled
+    elimination in pure elementwise ops fuses with the surrounding step
+    instead of calling the general LU path (not measured on the GPU).
     """
     n = A.shape[0]
     M = jnp.concatenate([A, b[:, None]], axis=1)
@@ -450,7 +444,7 @@ def kvaerno5_segment(f, x0, t0, t1, opts: ODEOptions, h_start=None):
 # half-step to t + gamma*h, one BDF2 step to t + h; L-stable, first stage
 # explicit, uniform implicit diagonal d = (2-sqrt(2))/2.
 # plain Python floats: np.float64 scalars in the tableau would promote the
-# f32 while_loop carry to f64 under the TPU dtype policy
+# f32 while_loop carry to f64 when f32 is the working dtype
 _TRBDF2_D = float((2.0 - np.sqrt(2.0)) / 2.0)
 _TRBDF2_W = float(np.sqrt(2.0) / 4.0)
 _TRBDF2_A = (
@@ -525,9 +519,9 @@ def _bdf_segment(f, x0, t0, t1, opts: ODEOptions, h_start=None):
 
     _U = _compute_R(jnp.asarray(1.0, dtype))
 
-    # the 6x6 difference-array transforms MUST run at full f32: TPU matmuls
-    # default to bf16 passes, which shreds the small high-order differences
-    # D carries (measured: 2x trajectory errors at rtol=1e-4)
+    # the 6x6 difference-array transforms MUST run at full precision: a
+    # default-precision f32 matmul may run reduced-precision passes, which
+    # shreds the small high-order differences D carries
     _PREC = jax.lax.Precision.HIGHEST
 
     def change_D(D, order, factor):
@@ -603,8 +597,7 @@ def _bdf_segment(f, x0, t0, t1, opts: ODEOptions, h_start=None):
 
         # order adaptation: error norms at order-1 / order / order+1.
         # Invalid candidates are masked AFTER the power, not via inf
-        # sentinels: the TPU's emulated-f64 pow returns NaN for
-        # inf**negative (and argmax then prefers the NaN), which silently
+        # sentinels: a pow that returns NaN for inf**negative (and argmax then prefers the NaN), which silently
         # poisoned the whole trajectory. -1.0 loses every argmax against
         # the always-valid middle candidate (facs >= 0).
         err_m = rms(error_const[order - 1] * D_acc[order], scale)
@@ -660,9 +653,9 @@ def _bdf_segment(f, x0, t0, t1, opts: ODEOptions, h_start=None):
 # (parameters fixed, rateiv constant, covariates carry-forward). The exact
 # segment solution is the matrix exponential of the augmented system
 # [[A, u], [0, 0]] — a fixed, loop-free op chain that batches perfectly on
-# TPU (no while_loop, no step-count divergence across vmapped lanes, no
+# the device (no while_loop, no step-count divergence across vmapped lanes, no
 # tolerance error at all). The reference has no equivalent (diffsol
-# integrates linear systems numerically); this is the TPU-native fast path
+# integrates linear systems numerically); this is the loop-free fast path
 # for user-written linear ODEs.
 
 _EXPM_SQUARINGS = 16  # covers ||[A u]|| dt up to 2^16 past the Taylor radius
@@ -674,8 +667,7 @@ def _mm_unrolled(A, B):
 
     Under the engine's vmap(vmap(scan(...))) nesting a jnp.matmul on a tiny
     per-cell matrix lowers to a batched 4x4 dot_general per call — hundreds
-    of unfusable kernel launches per psi (measured 832 ms/psi, 1600x slower
-    than dopri5). Explicit scalar products lower to elementwise ops that
+    of unfusable kernel launches per psi. Explicit scalar products lower to elementwise ops that
     XLA fuses across the whole Taylor/squaring chain.
     """
     k = A.shape[0]

@@ -18,11 +18,11 @@ Parity with /root/reference/src/simulator/equation/sde/:
 - diffusion has signature ``diffusion(p, t, cov) -> g[nstates]`` (the
   reference's Diffusion closure ignores t/state).
 
-TPU-native differences (documented, statistics-preserving):
+Batched-execution differences (documented, statistics-preserving):
 
 - the adaptive step controller is shared across the particle cloud (error =
   max over particles) instead of per-particle thread-local control: same
-  accuracy criterion, lock-step execution for the VPU;
+  accuracy criterion, lock-step execution across the cloud;
 - randomness comes from explicit jax PRNG keys, so runs are reproducible;
   the reference uses thread-local RNG and is not.
 """
@@ -269,7 +269,7 @@ def simulate_occasion_sde(
             q = jnp.where(weighted, q, 1.0)
             sum_q = jnp.sum(q)
             # dtype-aware floor: a hard 1e-300 underflows to 0 in f32 and
-            # turned every poor-fit TPU cell into log(0) = -inf; tiny keeps
+            # turned every poor-fit f32 cell into log(0) = -inf; tiny keeps
             # the degradation finite (~ -87 per observation in f32)
             tiny = jnp.asarray(jnp.finfo(fd).tiny, fd)
             w = q / jnp.maximum(sum_q, tiny)

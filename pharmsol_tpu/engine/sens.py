@@ -3,9 +3,9 @@
 Adaptive steppers integrate under ``lax.while_loop`` — reverse mode is
 impossible and plain forward mode differentiates the STEPPER: every jvp
 level re-traces the loop, and the Laplace pipeline's third-order tower
-measured ~35 min of XLA compile for a 6-subject toy (round-4 STATUS
-item 5).  The standard fix, implemented here, is the classical forward
-sensitivity formulation: the derivative of an ODE solution is itself the
+measured ~35 min of XLA compile on the CPU for a 6-subject toy.  The
+standard fix, implemented here, is the classical forward sensitivity
+formulation: the derivative of an ODE solution is itself the
 solution of an ODE, namely the variational system
 
     d/dt s = (∂f/∂x) s + (∂f/∂p) p_dot,      s(0) = (∂x0/∂p) p_dot,

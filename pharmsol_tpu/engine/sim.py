@@ -29,28 +29,6 @@ from ..config import float_dtype
 from .grid import CovView, OccasionArrays, Segments, build_segments
 
 
-def _segment_unroll(spec: "ModelSpec", n_segments: int):
-    """Unroll policy for the segment scan.
-
-    Closed-form analytical bodies are a handful of elementwise ops, and XLA
-    only fuses across scan iterations when the loop is unrolled — measured
-    1.6x on the psi hot path (v5e, 16384x512, 7 segments: 770 -> 1254 M
-    cells/s). ODE/SDE bodies embed adaptive steppers; unrolling those
-    multiplies compile time for no fusion win, so they keep the rolled scan
-    — except loop-free propagators (expm), which opt in via
-    ``ModelSpec.loop_free``.
-    """
-    if spec.kind != "analytical" and not spec.loop_free:
-        return 1
-    if spec.kind != "analytical":
-        # loop-free ODE (expm): the body is ~30 unrolled matrix products,
-        # so full unrolling over long multi-dose schedules explodes compile
-        # time (measured 2m+ on the 48-segment repeat workload); a bounded
-        # unroll keeps the fusion win with a flat compile cost
-        return True if n_segments <= 12 else 4
-    return True if n_segments <= 64 else 8
-
-
 class ModelSpec(NamedTuple):
     """The role decomposition every authoring surface lowers to.
 
@@ -86,9 +64,6 @@ class ModelSpec(NamedTuple):
     # solver's cruise step size) across segments, warm-starting each
     # segment's adaptive controller; 0.0 = no history.
     propagate_carry: Optional[Callable] = None
-    # True when propagate contains no data-dependent loops (expm): the
-    # segment scan may unroll for cross-segment fusion.
-    loop_free: bool = False
 
 
 class OccasionSim(NamedTuple):
@@ -186,9 +161,11 @@ def simulate_occasion(
         return (x, p_seg, sc), x_pre
 
     xs = (segs.t, segs.dt, segs.b_amt, segs.b_input, segs.rateiv, segs.is_event)
+    # the segment scan stays rolled: on the GPU an unrolled closed-form
+    # chain fused into one float64 kernel took minutes to compile (887 s
+    # for the 2-cmt oral psi at 16,384 x 512, PERF.md)
     (_, _, _), x_pre_all = jax.lax.scan(
         step, (x0, p, jnp.asarray(0.0, fd)), xs,
-        unroll=_segment_unroll(spec, segs.t.shape[0]),
     )
 
     x_obs = x_pre_all[segs.obs_pos]  # [NO, nstates]
@@ -222,15 +199,14 @@ def simulate_occasion_assoc(
     Preconditions (validated by Analytical.with_scan): no seq equation, no
     custom bolus application — i.e. the propagator is genuinely affine.
 
-    Measured trade-off (v5e, 512 rows x 128 supports x 50 segments, 2-cmt
-    oral): the serial fused scan carries 3 floats of state in registers,
-    while this path materializes [rows, supports, M, n, n] prefix tensors
-    through log2(M) compose rounds — ~18x more wall time, and f32 matrix
-    products compose error to ~2e-2 relative (f64 is exact to 1e-10). The
-    serial scan therefore stays the default; this path exists as the
-    measured answer to SURVEY §5's sequence-parallelism question and for
-    f64 workloads with very long schedules and few rows, where segment
-    depth (not bandwidth) dominates.
+    Trade-off (not measured on the GPU): the serial scan carries a few
+    floats of state per cell, while this path materializes
+    [rows, supports, M, n, n] prefix tensors through log2(M) compose
+    rounds, and f32 matrix products compound rounding error through them.
+    The serial scan therefore stays the default; this path exists as the
+    answer to SURVEY §5's sequence-parallelism question and for f64
+    workloads with very long schedules and few rows, where segment depth
+    (not bandwidth) dominates.
     """
     fd = float_dtype()
     p = jnp.asarray(p, dtype=fd)
@@ -318,7 +294,7 @@ def simulate_occasion_ll(
     but the per-observation log-likelihood accumulates in the scan carry:
     no per-segment state history is written to HBM. On the psi matrix
     (support x subjects x segments x states) that removes the dominant
-    memory traffic — the TPU analogue of the reference's "hot cache" path.
+    memory traffic — the batched analogue of the reference's "hot cache" path.
     """
     from ..likelihood.distributions import LOG_2PI
     from ..likelihood.loglik import observation_sigmas
@@ -392,8 +368,8 @@ def simulate_occasion_ll(
         segs.t, segs.dt, segs.b_amt, segs.b_input, segs.rateiv, segs.is_event,
         seg_sigma, seg_active, seg_value, seg_cens, seg_outeq,
     )
+    # rolled, as in simulate_occasion
     (_, _, ll, _), _ = jax.lax.scan(
         step, (x0, p, jnp.asarray(0.0, fd), jnp.asarray(0.0, fd)), xs,
-        unroll=_segment_unroll(spec, segs.t.shape[0]),
     )
     return ll

@@ -367,12 +367,6 @@ def analytical_model(
         nout=len(outputs),
     )
     model._metadata = metadata
-    # pallas psi fast-path hooks (likelihood/matrix._PallasPsiPlan): the
-    # structure name, the declared->kernel parameter mapping (inclusive of
-    # derive), and the bolus destination states for route validation
-    model._pallas_structure = structure
-    model._kernel_inputs = kernel_inputs
-    model._bolus_dest = dest
     return model
 
 

@@ -14,7 +14,7 @@ Label resolution parity (equation/mod.rs:195-273): with metadata attached,
 route/output labels resolve by name (with ``input_<n>``/``outeq_<n>`` numeric
 aliases); without metadata, bare numeric labels become dense indices.
 
-TPU-native architecture: each equation instance owns
+Architecture: each equation instance owns
 
 - a host-side lowering cache (subject hash -> PopulationGrid), and
 - jitted device programs (row simulation, row log-lik, psi column) that are
@@ -392,7 +392,7 @@ class EquationBase:
                           per_subject: bool = False):
         """A jax-DIFFERENTIABLE function ``params -> log-likelihood``.
 
-        TPU-native capability with no reference counterpart (the Rust
+        A capability with no reference counterpart (the Rust
         engine cannot autodiff): the event grid is lowered once host-side
         and the returned closure is a pure jax function of the dense
         parameter vector — ``jax.grad`` / ``jax.hessian`` / ``jax.vmap``
@@ -564,9 +564,9 @@ class Analytical(EquationBase):
         'associative' (lax.associative_scan over affine per-segment
         propagators — O(log M) depth; SURVEY's sequence-parallel path, no
         reference counterpart). Associative requires an affine propagator
-        (no seq equation, default bolus application) and is measured to be
-        slower and less f32-accurate than the fused serial scan on typical
-        population workloads — see simulate_occasion_assoc's docstring."""
+        (no seq equation, default bolus application); on typical population
+        workloads it is expected to be slower and less f32-accurate than the
+        serial scan — see simulate_occasion_assoc's docstring."""
         if mode not in ("serial", "associative"):
             raise PharmsolError("scan mode must be 'serial' or 'associative'")
         if mode == "associative" and self._seq is not None:
@@ -697,5 +697,4 @@ class ODE(EquationBase):
             seq=None,
             apply_bolus=rhs_difference_apply_bolus(diffeq),
             propagate_carry=make_ode_propagate_carry(diffeq, self._opts),
-            loop_free=self._opts.solver == "expm",
         )

@@ -1,7 +1,7 @@
 // pharmsol-tpu native runtime: columnar Pmetrics CSV parser.
 //
 // The reference's data layer is native Rust (src/data/parser/pmetrics.rs);
-// this is the TPU rebuild's native-IO equivalent: a single-pass CSV
+// this is the rebuild's native-IO equivalent: a single-pass CSV
 // tokenizer that emits numeric columns and interned string tables, consumed
 // zero-copy-ish by Python via ctypes. Grouping/padding into device arrays
 // happens vectorized in numpy on top of these columns.

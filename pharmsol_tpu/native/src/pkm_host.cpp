@@ -1,7 +1,7 @@
 // pkm_host: a standalone C++ host for pharmsol-tpu `.pkm` artifacts.
 //
 // The reference executes models on foreign hosts through WASM bundles
-// (src/dsl/wasm_compile.rs:30-43 + browser-compile-bridge/); the TPU
+// (src/dsl/wasm_compile.rs:30-43 + browser-compile-bridge/); this
 // rebuild's `.pkm` artifact is plain JSON carrying the analyzed statement
 // IR, and dsl/pure.py documents the evaluation contract ("any host that
 // can parse JSON and evaluate arithmetic can run a pharmsol model"). This

@@ -1,6 +1,6 @@
 """Device-side (jitted) population NCA over a shared time grid.
 
-VERDICT item 4: the TPU-native replacement for the host-numpy
+The device replacement for the host-numpy
 ``nca.batch.batch_nca``. Where the reference rayon-parallels scalar NCA per
 subject (nca/traits.rs:206-243) and the host batch path loops window sizes,
 this evaluates the whole parameter set as ONE jitted array program:
@@ -14,7 +14,7 @@ this evaluates the whole parameter set as ONE jitted array program:
 - λz-derived exposure/terminal/clearance parameters as elementwise follow-ups.
 
 Gates and scoring mirror nca/calc.rs:123-394 (candidate windows after Tmax,
-min-R², span-ratio, Kahan-free but f64-on-CPU / f32-on-TPU). Results match
+min-R², span-ratio, Kahan-free, at the working dtype). Results match
 the host ``batch_nca`` (parity-tested) which itself matches per-subject
 ``nca()``.
 

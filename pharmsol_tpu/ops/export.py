@@ -1,6 +1,6 @@
 """AOT compilation artifacts via jax.export (StableHLO).
 
-The TPU-native equivalent of the reference's cargo-AOT cdylib path
+The JAX equivalent of the reference's cargo-AOT cdylib path
 (src/dsl/aot.rs): a jitted population program is serialized to a versioned
 StableHLO artifact that reloads and executes without retracing Python — the
 deployment story for serving environments that ship compiled programs

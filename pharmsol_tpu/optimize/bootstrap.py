@@ -329,7 +329,7 @@ def bootstrap_laplace(
     one jitted ``vmap(lax.scan(L-BFGS step))`` program over the weighted
     Laplace objective, warm-started at the full-data optimum. One
     compile, ``n_boot`` refits in parallel on the device — the
-    TPU-native answer to PsN's sequential bootstrap refits.
+    batched answer to PsN's sequential bootstrap refits.
 
     ``refit_iters`` fixed L-BFGS steps per replicate (no early stop — a
     data-dependent stop would break the batched program; warm-starting

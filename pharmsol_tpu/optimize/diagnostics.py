@@ -13,7 +13,7 @@ simulated predictive distribution against the data:
   simulated predictive distribution, mapped through the normal quantile
   function — under a correct model, npde ~ N(0, 1) iid.
 
-TPU-native design: each replicate re-simulates EVERY subject in one
+Batched design: each replicate re-simulates EVERY subject in one
 vmapped device call on the same lowered event grid the estimators use
 (optimize/_condll.py); replicates are chunked through one jitted kernel,
 so a 500-replicate VPC costs ~500/chunk device dispatches regardless of

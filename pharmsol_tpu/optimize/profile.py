@@ -9,7 +9,7 @@ standard remedy when a variance component or poorly-identified theta
 makes the Wald interval lie (PsN's ``llp`` tool; the reference leaves
 such workflows to external drivers, SURVEY §3.2).
 
-TPU-native design: every (parameter, grid point) pair is an independent
+Batched design: every (parameter, grid point) pair is an independent
 pinned-coordinate re-optimization of the SAME objective — so ALL of
 them run as ONE jitted ``vmap(lax.scan(L-BFGS))`` program, warm-started
 at the full optimum, with the pin expressed as

@@ -18,7 +18,7 @@ them. This module closes that loop in-framework, the parametric sibling of
            form for constant/proportional/exponential; an MM fixed point
            for combined's joint (a, b))
 
-TPU-native design: the ENTIRE fit — every MH proposal, likelihood
+Batched design: the ENTIRE fit — every MH proposal, likelihood
 evaluation, and M-step — is one jitted ``lax.scan`` over iterations; the
 inner likelihood is the same vmapped per-occasion-row kernel the batch-LL
 entry point uses (likelihood/matrix.py `_batch_fn`), so subjects evaluate

@@ -16,7 +16,7 @@ at a time, dropping the LEAST significant at the stricter
 ``backward_alpha`` until all survivors are significant — the standard
 guard against forward-selection overfitting (PsN defaults 0.05 / 0.01).
 
-TPU-native twist: where PsN queues one NONMEM run per candidate, every
+Batched twist: where PsN queues one NONMEM run per candidate, every
 candidate model at a step shares the SAME psi dimension — only the
 covariate design ``(x [n_sub, n_eff], onehot [n_eff, p])`` differs — so
 all candidate fits run as ONE jitted ``vmap(lax.scan(L-BFGS))`` program

@@ -296,7 +296,7 @@ def sse_laplace(
     design (the VPC kernel), then refits EVERY replicate as one jitted
     ``vmap(lax.scan(L-BFGS step))`` program over the y-parameterized
     Laplace objective, warm-started at the full-data optimum — the
-    TPU-native answer to PsN's sequential sse refits.
+    batched answer to PsN's sequential sse refits.
 
     ``refit_iters`` fixed L-BFGS steps per replicate (a data-dependent
     stop would break the batched program; the warm start makes modest

@@ -1,12 +1,13 @@
 """Device-mesh sharding for population workloads.
 
 The reference's parallelism is rayon threads over psi-matrix rows
-(matrix.rs:79-98). The TPU-native equivalent: a 2D ``jax.sharding.Mesh``
-with axes ``("subjects", "support")``; occasion rows shard over the
-subjects axis and support points over the support axis. The per-cell work
-is embarrassingly parallel, so ICI traffic is just the final
-``segment_sum`` reduction and result gather — XLA inserts these from the
-NamedSharding annotations.
+(matrix.rs:79-98). Here: a 2D ``jax.sharding.Mesh`` with axes
+``("subjects", "support")``; occasion rows shard over the subjects axis and
+support points over the support axis. The per-cell work is embarrassingly
+parallel, so the only cross-device traffic is the final ``segment_sum``
+reduction and result gather; XLA inserts these from the NamedSharding
+annotations. The GPUs of one host are joined all to all, so the mesh
+follows the algorithm: all devices on the subjects axis by default.
 
 Padding: rows are padded with inert rows (no valid observations -> log-lik
 0, mapped to subject 0) and support points by repetition (sliced off the
@@ -121,30 +122,21 @@ def log_likelihood_matrix_sharded(
 ) -> np.ndarray:
     """Mesh-sharded psi matrix; numerically identical to the unsharded path.
 
-    ``engine='pallas'`` runs the fused psi kernel inside a ``shard_map`` over
-    the subjects axis (support replicated): each device evaluates its own
-    occasion-row block with the hand-scheduled kernel, no cross-device
-    traffic until the host-side row->subject aggregation.
+    ``engine`` is ``'xla'`` or ``'auto'`` (both the XLA engine), as in
+    :func:`pharmsol_tpu.likelihood.matrix.log_likelihood_matrix`.
     """
     from ..data.structs import Data
-    from ..likelihood.matrix import _psi_fn, check_error_model_coverage
+    from ..likelihood.matrix import (
+        _check_engine, _psi_fn, check_error_model_coverage,
+    )
 
     data = subjects if isinstance(subjects, Data) else Data(list(subjects))
     if mesh is None:
         mesh = population_mesh()
+    _check_engine(engine)
     grid = equation.lower(data.subjects())
     lowered = error_models.lower(equation.resolve_output_label, equation.nouteqs())
     check_error_model_coverage(grid, lowered)
-
-    if engine == "pallas":
-        return _pallas_psi_sharded(
-            equation, grid, np.asarray(support_points, dtype=np.float64),
-            lowered, mesh,
-        )
-    if engine != "xla":
-        from ..errors import PharmsolError
-
-        raise PharmsolError(f"unknown psi engine `{engine}` (xla or pallas)")
 
     rows, row_subject, _ = shard_population(grid, mesh)
     support, n_real = shard_support(
@@ -225,54 +217,3 @@ def log_likelihood_batch_sharded(
     )
     out = np.asarray(out, dtype=np.float64)
     return np.where(np.isfinite(out) | np.isneginf(out), out, -np.inf)
-
-
-def _pallas_psi_sharded(equation, grid, sp, lowered, mesh) -> np.ndarray:
-    """shard_map(pallas psi) over the subjects axis; support replicated.
-
-    Validation, stream layout, padding, and row->subject aggregation are
-    shared with the unsharded driver via ``_PallasPsiPlan``; per-shard row
-    blocks are padded so every device sees a SUB_TILE multiple (inert
-    padding rows produce ll == 0 and are sliced off).
-    """
-    try:
-        from jax import shard_map
-    except ImportError:  # older jax
-        from jax.experimental.shard_map import shard_map
-
-    from ..likelihood.matrix import (
-        _PallasOdePsiPlan, _PallasPsiPlan, _PallasSdePsiPlan,
-    )
-    from ..ops.pallas_psi import SUB_TILE
-
-    n_shards = mesh.shape["subjects"]
-    plan_cls = {
-        "ode": _PallasOdePsiPlan,
-        "sde": _PallasSdePsiPlan,
-    }.get(getattr(equation, "kind", None), _PallasPsiPlan)
-    plan = plan_cls(
-        equation, grid, sp, lowered, row_multiple=SUB_TILE * n_shards
-    )
-    cache = equation.__dict__.setdefault("_jit_psi", {})
-    key = plan.cache_key("sharded", mesh.shape_tuple)
-    fn = cache.get(key)
-    if fn is None:
-        run = plan.runner()
-        # streams are row-leading but not all 2D (mult_seg is [Rp, P, M])
-        stream_specs = tuple(
-            P("subjects", *([None] * (a.ndim - 1))) for a in plan.stream_args()
-        )
-        sm_kwargs = dict(
-            mesh=mesh,
-            in_specs=stream_specs
-            + tuple(P(*([None] * a.ndim)) for a in plan.rep_args()),
-            out_specs=P("subjects", None),
-        )
-        try:  # jax >= 0.8 uses check_vma; the experimental API used check_rep
-            sharded = shard_map(run, check_vma=False, **sm_kwargs)
-        except TypeError:
-            sharded = shard_map(run, check_rep=False, **sm_kwargs)
-        fn = cache[key] = jax.jit(sharded)
-
-    psi = plan.finalize(fn(*plan.stream_args(), *plan.rep_args()), grid)
-    return np.where(np.isfinite(psi), psi, -np.inf)

@@ -1,7 +1,7 @@
 """Bounded LRU caches (quick_cache equivalents, simulator/cache.rs parity).
 
 The hot population paths never touch these — batched recomputation replaces
-memoization on TPU — but the single-subject API keeps the reference's
+memoization on the device — but the single-subject API keeps the reference's
 caching semantics: repeated ``estimate_predictions`` /
 ``estimate_log_likelihood`` calls with identical (subject, parameters) hit
 the cache, cloned equations share it, and capacities are configurable.

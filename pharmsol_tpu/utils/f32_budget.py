@@ -1,15 +1,15 @@
-"""The f32-on-TPU accuracy budget: cases, goldens, and committed tolerances.
+"""The f32 accuracy budget: cases, goldens, and committed tolerances.
 
-BASELINE's 1e-6 parity gate runs CPU/f64; production TPU runs are f32.
-This module is the single source of truth for what f32 is ALLOWED to cost,
-per model class — consumed by two harnesses:
+The library's working dtype is float64; float32 is an opt-in
+(``PHARMSOL_TPU_F32=1`` / ``set_float_dtype``). This module is the single
+source of truth for what f32 is ALLOWED to cost, per model class, and is
+consumed by two harnesses:
 
-- ``tests/test_f32_budget.py``: CPU run — f64 XLA golden vs f32 pallas
-  (interpret, TPU float semantics) AND f32 XLA, asserting every cell stays
-  inside its committed budget. This is what gates regressions.
-- ``scripts/tpu_smoke.py``: the same table executed ON-CHIP with compiled
-  Mosaic kernels, so real-hardware semantics (fused multiply-adds, libdevice
-  transcendentals) are asserted against the same numbers.
+- ``tests/test_f32_budget.py``: CPU run, f64 XLA golden vs f32 XLA,
+  asserting every cell stays inside its committed budget;
+- ``chip_smoke.py`` phase d: the same table with the f32 side on the GPU
+  (libdevice transcendentals, fused multiply-adds) and the f64 golden on
+  the CPU backend.
 
 Budget rationale (measured, then committed with ~3x headroom):
 
@@ -17,8 +17,8 @@ Budget rationale (measured, then committed with ~3x headroom):
   exp()s per segment: ~1e-6..1e-5 relative on summed log-likelihoods;
 - 3-cmt structures add the eigenvalue cubic (arccos path) — the dominant
   f32 amplifier, budgeted 1e-4;
-- censored cells ride the kernel's Abramowitz-Stegun log-CDF (~6e-5 abs,
-  ops/pallas_psi._log_ndtr) — budgeted 2e-4 relative on affected columns;
+- censored cells go through the normal log-CDF, budgeted 2e-4 relative on
+  affected columns;
 - seq multiplier streams add one product per segment: same order as plain.
 
 Every case: 8 subjects, multi-dose (2 boluses) + infusion into input 0,
@@ -48,28 +48,22 @@ F32_BUDGET: Dict[str, float] = {
     # feature variants (on one_compartment_with_absorption unless noted)
     "seq_multiplier_row": 5e-5,
     "seq_multiplier_segment": 5e-5,
-    # lag + seq chain depth > 1: in-kernel depth counter + split-march
-    # fire (two propagates per segment instead of one)
+    # lag + seq chain depth > 1 (two propagates per segment instead of one)
     "lag_seq_depth": 1e-4,
-    # segment-indexed exact planes: tv-covariate parameter mixing (the
-    # chain is host-f64; only the kernel propagation is f32)
+    # time-varying-covariate seq: parameters change at covariate times
     "seq_segplanes": 5e-5,
-    # lag + tv-covariate seq: per-COLUMN main/post planes + the true
-    # split-march fire (two propagates per segment; chain is host-f64)
+    # lag + time-varying-covariate seq
     "seq_colplanes": 1e-4,
     "censoring_heavy": 2e-4,
     "ode_dopri5": 2e-4,  # adaptive stepping compounds controller decisions
-    # round-3 kernel paths (all on the ode_dopri5-style workload)
-    "ode_lag_fa": 2e-4,          # pending-dose split march
-    "ode_tv_covariate": 2e-4,    # per-segment affine covariate streams
-    "ode_multi_input": 2e-4,     # per-input bolus/rate streams
+    # ODE feature paths (all on the ode_dopri5-style workload)
+    "ode_lag_fa": 2e-4,          # lag/fa dose handling
+    "ode_tv_covariate": 2e-4,    # time-varying covariates
+    "ode_multi_input": 2e-4,     # per-input bolus/rate
     "analytical_init": 5e-5,     # per-support initial-state rows
-    # accuracy-level (different step/order sequences than the f64 golden
-    # path): in-kernel variable-order BDF, order capped at 3 in f32.
-    # LL amplifies rtol-class prediction error by ~pred/sigma (~10 on
-    # this workload): interpret-f32 measures 4e-4, compiled Mosaic
-    # 1.4e-3 (its own step sequence) — budget set above the compiled
-    # number
+    # accuracy-level: an f32 run takes other step/order sequences than the
+    # f64 golden, and LL amplifies rtol-class prediction error by
+    # ~pred/sigma (~10 on this workload)
     "ode_bdf": 2e-3,
     # exact propagator (no controller): pure f32 roundoff through the
     # Taylor/squaring chain (~30 tiny matmuls per segment)
@@ -199,8 +193,7 @@ def _lag_seq_depth_case() -> BudgetCase:
         from ..models.equation import Analytical
 
         # support-dependent lag + covariate-free seq; the infusion's end
-        # sub-split compounds the chain past depth 1, so the plan takes
-        # the in-kernel depth-counter (seg_evcode) path
+        # sub-split compounds the chain past depth 1
         model = Analytical(
             one_compartment,
             out=lambda x, p, t, cov: x[0:1] / p[1],
@@ -576,12 +569,13 @@ def budget_cases():
 _GOLDEN_CACHE: Dict[str, np.ndarray] = {}
 
 
-def run_case(case: BudgetCase, engine: str) -> dict:
-    """Evaluate one case: f64 golden vs f32 on ``engine``.
+def run_case(case: BudgetCase) -> dict:
+    """Evaluate one case: f64 golden vs f32, both on the XLA engine.
 
     Returns {"rel": measured, "budget": committed, "ok": bool}. Callers
     own dtype discipline: this briefly switches the global float dtype.
-    The f64 golden is cached per case (both engine variants share it).
+    The f64 golden always runs on the host CPU backend (cached per case);
+    the f32 side runs on JAX's default device.
     """
     import jax
     import jax.numpy as jnp
@@ -594,19 +588,15 @@ def run_case(case: BudgetCase, engine: str) -> dict:
     try:
         golden = _GOLDEN_CACHE.get(case.name)
         if golden is None:
-            # the f64 golden always runs on the host CPU: true IEEE f64
-            # (the TPU's emulated f64 is itself an approximation under test)
             with jax.default_device(jax.devices("cpu")[0]):
-                golden = log_likelihood_matrix(
-                    model, data, sp, ems, engine="xla"
-                )
+                golden = log_likelihood_matrix(model, data, sp, ems)
             _GOLDEN_CACHE[case.name] = golden
         set_float_dtype(jnp.float32)
         model._invalidate()
-        got = log_likelihood_matrix(model, data, sp, ems, engine=engine)
+        got = log_likelihood_matrix(model, data, sp, ems)
     finally:
         set_float_dtype(jnp.float64)
         model._invalidate()
     rel = float(np.max(np.abs(got - golden) / np.maximum(np.abs(golden), 1.0)))
-    return {"name": case.name, "engine": engine, "rel": rel,
-            "budget": case.budget, "ok": rel <= case.budget}
+    return {"name": case.name, "rel": rel, "budget": case.budget,
+            "ok": rel <= case.budget}

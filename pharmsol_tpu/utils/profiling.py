@@ -6,7 +6,7 @@ is first-class:
 
 - ``stage(name)``: a context manager that both records wall time into a
   per-process registry and emits a ``jax.profiler.TraceAnnotation`` so the
-  stage shows up on TPU profiler timelines;
+  stage shows up on device profiler timelines;
 - ``profile_trace(dir)``: wraps ``jax.profiler.trace`` for one-line capture
   of a TensorBoard-compatible device trace;
 - ``stage_report()``: cumulative table of recorded stages.

@@ -1,17 +1,18 @@
-"""The two-tier development gate: quick tests + bench regression (+ TPU smoke).
+"""The two-tier development gate: quick tests + bench regression.
 
 Replaces the reference's CI roles (.github/workflows/build.yml quick checks +
 pr_benchmarks.yml perf gate) for this environment:
 
 1. quick test tier: ``pytest -m "not slow"`` — the full suite minus the
-   heavy ODE/SDE/pallas parity corpora (run those with plain ``pytest
-   tests/`` before landing substantial engine changes);
+   heavy ODE/SDE parity corpora (run those with plain ``pytest tests/``
+   before landing substantial engine changes);
 2. bench regression (``--bench``): re-runs the quick CPU workload matrix
    and diffs it against the newest recorded baseline via
-   ``benches/check_regression.py`` (several minutes — opt-in);
-3. TPU smoke (``--tpu``): ``scripts/tpu_smoke.py`` on the attached chip —
-   the test suite is CPU-only and misses TPU-compile regressions
-   (CLAUDE.md), so run this after lowering-relevant changes.
+   ``benches/check_regression.py`` (several minutes — opt-in).
+
+Every child process here runs on the CPU. The test suite misses GPU
+compile regressions: run ``python chip_smoke.py`` on a GPU machine (one
+process, one card) after lowering-relevant changes.
 
 Emits ONE JSON verdict line and exits non-zero on any failure.
 """
@@ -20,6 +21,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -28,10 +30,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 
 
-def run(cmd, timeout=3600):
+def run(cmd, timeout=3600, env=None):
     t0 = time.perf_counter()
     proc = subprocess.run(
-        cmd, cwd=ROOT, capture_output=True, text=True, timeout=timeout
+        cmd, cwd=ROOT, capture_output=True, text=True, timeout=timeout,
+        env=env,
     )
     return {
         "cmd": " ".join(cmd),
@@ -43,8 +46,6 @@ def run(cmd, timeout=3600):
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--tpu", action="store_true",
-                    help="also run the TPU smoke suite on the attached chip")
     ap.add_argument("--bench", action="store_true",
                     help="also run the quick bench matrix + regression diff")
     ap.add_argument("--full", action="store_true",
@@ -54,7 +55,8 @@ def main() -> int:
     verdict = {"ok": True, "steps": {}}
 
     marker = [] if args.full else ["-m", "not slow"]
-    step = run([sys.executable, "-m", "pytest", "tests/", "-q", *marker])
+    step = run([sys.executable, "-m", "pytest", "tests/", "-q", *marker],
+               env={**os.environ, "JAX_PLATFORMS": "cpu"})
     verdict["steps"]["tests"] = step
     verdict["ok"] &= step["rc"] == 0
 
@@ -65,7 +67,7 @@ def main() -> int:
             step = run([
                 sys.executable, "benches/native_matrix.py", "--quick",
                 "--cpu", "--json", str(current),
-            ])
+            ], env={**os.environ, "JAX_PLATFORMS": "cpu"})
             verdict["steps"]["bench_run"] = step
             verdict["ok"] &= step["rc"] == 0
             if step["rc"] == 0:
@@ -79,11 +81,6 @@ def main() -> int:
             verdict["steps"]["bench_regression"] = {
                 "skipped": "no recorded quick baseline"
             }
-
-    if args.tpu:
-        step = run([sys.executable, "scripts/tpu_smoke.py"], timeout=7200)
-        verdict["steps"]["tpu_smoke"] = step
-        verdict["ok"] &= step["rc"] == 0
 
     print(json.dumps(verdict))
     return 0 if verdict["ok"] else 1

@@ -1,90 +1,106 @@
-"""Plan-decision goldens: `engine='auto'` routing is pinned (quick tier).
+"""Engine selection goldens (quick tier).
 
-Round-5 follow-through on the likelihood/plans/ split (VERDICT item 5):
-the routing logic stayed in matrix.py and these goldens pin it without
-running any psi — `_auto_engine` is pure host logic over (platform,
-model kind, cell count). A TPU platform is simulated by monkeypatching
-the single probe `_auto_engine` makes.
+The XLA engine serves psi for every model kind: ``engine='auto'`` and
+``engine='xla'`` name it, and any other engine name is refused with a
+``PharmsolError`` (the sharded driver included). Backend-dependent
+choices read ``config.backend_platform``; the NPAG weight solve's device
+burn-in is the one that remains, pinned here for the CPU and GPU
+platforms by monkeypatching that single probe.
 """
-
-import types
 
 import numpy as np
 import pytest
 
+import jax.numpy as jnp
+
 import pharmsol_tpu as pst
-from pharmsol_tpu import Analytical, Subject
+from pharmsol_tpu import (
+    SDE, Analytical, AssayErrorModel, AssayErrorModels, ErrorPoly, Subject,
+)
+from pharmsol_tpu import config
+from pharmsol_tpu.errors import PharmsolError
 from pharmsol_tpu.likelihood import matrix as M
+from pharmsol_tpu.models.equation import ODE
 
 
-class _Grid:
-    def __init__(self, n_rows):
-        self.n_rows = n_rows
+def _ems():
+    return AssayErrorModels().add(
+        0, AssayErrorModel.additive(ErrorPoly(0.5, 0.1), 1.0))
 
 
-class _Eq:
-    def __init__(self, kind):
-        self.kind = kind
+def _subjects():
+    return [Subject.builder(f"s{i}").bolus(0, 100, 0)
+            .observation(1.0, 3.0 + i, 0).build() for i in range(2)]
 
 
-def _sp(n):
-    return np.zeros((n, 3))
+def _model(kind):
+    if kind == "analytical":
+        return Analytical(
+            pst.one_compartment, out=lambda x, p, t, cov: x[:1] / p[1],
+            nstates=1, ndrugs=1, nout=1,
+        )
+    if kind == "ode":
+        return ODE(
+            lambda x, p, t, b, rateiv, cov: jnp.stack([-p[0] * x[0] + b[0]]),
+            out=lambda x, p, t, cov: x[:1] / p[1],
+            nstates=1, ndrugs=1, nout=1,
+        )
+    return SDE(
+        drift=lambda x, p, t, rateiv, cov: jnp.stack([-p[0] * x[0]]),
+        diffusion=lambda p, t, cov: jnp.stack([0.0]),
+        out=lambda x, p, t, cov: x[0:1] / p[1],
+        nparticles=4, nstates=1, ndrugs=1, nout=1, seed=3,
+    )
 
 
-def _with_platform(monkeypatch, platform):
-    dev = types.SimpleNamespace(platform=platform)
-    monkeypatch.setattr(M.jax, "devices", lambda *a, **k: [dev])
-
-
-def test_cpu_always_routes_xla(monkeypatch):
-    _with_platform(monkeypatch, "cpu")
-    eng, reason = M._auto_engine(_Eq("analytical"), _Grid(10**9), _sp(1024))
-    assert eng == "xla"
-    assert "TPU only" in reason
-
-
-@pytest.mark.parametrize("kind", ["analytical", "ode", "sde"])
-def test_tpu_small_matrix_routes_xla(monkeypatch, kind):
-    _with_platform(monkeypatch, "tpu")
-    min_cells = M.AUTO_PALLAS_MIN_CELLS_BY_KIND.get(
-        kind, M.AUTO_PALLAS_MIN_CELLS)
-    rows = max(1, (min_cells - 1) // 64)
-    eng, reason = M._auto_engine(_Eq(kind), _Grid(rows), _sp(64))
-    assert eng == "xla"
-    assert "too small" in reason
+_SP = np.array([[0.2, 10.0], [0.3, 12.0]])
 
 
 @pytest.mark.parametrize("kind", ["analytical", "ode", "sde"])
-def test_tpu_large_matrix_routes_pallas(monkeypatch, kind):
-    _with_platform(monkeypatch, "tpu")
-    min_cells = M.AUTO_PALLAS_MIN_CELLS_BY_KIND.get(
-        kind, M.AUTO_PALLAS_MIN_CELLS)
-    rows = min_cells // 64 + 1
-    eng, reason = M._auto_engine(_Eq(kind), _Grid(rows), _sp(64))
-    assert eng == "pallas"
-    assert "crossover" in reason
+@pytest.mark.parametrize("sharded", [False, True], ids=["local", "sharded"])
+def test_pallas_engine_is_refused(kind, sharded):
+    if sharded:
+        from pharmsol_tpu.parallel.mesh import (
+            log_likelihood_matrix_sharded as psi_fn,
+        )
+    else:
+        psi_fn = M.log_likelihood_matrix
+    with pytest.raises(PharmsolError, match="engine='xla'"):
+        psi_fn(_model(kind), _subjects(), _SP, _ems(), engine="pallas")
 
 
-def test_crossover_constants_are_the_committed_ones():
-    # the per-kind thresholds are perf-tuned artifacts (round 3); a
-    # silent change shifts routing for every user at once
-    assert M.AUTO_PALLAS_MIN_CELLS == 262_144
-    assert M.AUTO_PALLAS_MIN_CELLS_BY_KIND["sde"] < M.AUTO_PALLAS_MIN_CELLS
+@pytest.mark.parametrize("engine", ["auto", "xla"])
+def test_auto_and_xla_name_the_same_engine(engine):
+    model = _model("analytical")
+    got = M.log_likelihood_matrix(model, _subjects(), _SP, _ems(),
+                                  engine=engine)
+    want = M.log_likelihood_matrix(model, _subjects(), _SP, _ems(),
+                                   engine="xla")
+    np.testing.assert_array_equal(got, want)
 
 
 def test_last_engine_decision_records_fallback_reason():
-    # end-to-end on CPU: auto -> xla with the platform reason retrievable
-    model = Analytical(
-        pst.one_compartment, out=lambda x, p, t, cov: x[:1] / p[1],
-        nstates=1, ndrugs=1, nout=1,
-    )
-    subs = [Subject.builder("s").bolus(0, 100, 0)
-            .observation(1.0, 3.0, 0).build()]
-    from pharmsol_tpu import AssayErrorModel, AssayErrorModels, ErrorPoly
-
-    ems = AssayErrorModels().add(
-        0, AssayErrorModel.additive(ErrorPoly(0.5, 0.1), 1.0))
-    M.log_likelihood_matrix(model, subs, np.array([[0.2, 10.0]]), ems)
+    # end-to-end on CPU: auto -> xla with the reason retrievable
+    model = _model("analytical")
+    assert M.last_engine_decision(model) is None
+    M.log_likelihood_matrix(model, _subjects(), _SP, _ems())
     d = M.last_engine_decision(model)
     assert d["engine"] == "xla"
-    assert "TPU only" in d["reason"]
+    assert "XLA engine" in d["reason"]
+
+
+def test_backend_platform_reads_the_default_backend():
+    assert config.backend_platform() == "cpu"
+
+
+@pytest.mark.parametrize("platform,cells,expect", [
+    ("cpu", 10**7, False),
+    ("gpu", 10**7, True),
+    ("gpu", 1_000, False),
+    ("cpu", 1_000, False),
+])
+def test_weights_device_burn_in_routing(monkeypatch, platform, cells, expect):
+    from pharmsol_tpu.optimize.npag import _weights_device_eligible
+
+    monkeypatch.setattr(config, "backend_platform", lambda: platform)
+    assert _weights_device_eligible((cells, 1)) is expect

@@ -2,9 +2,9 @@
 
 The reference ships runnable examples (examples/*.rs, exercised by
 `cargo build --examples` in CI); here the equivalent guard is executing
-each CPU-safe example end-to-end. TPU-oriented examples
-(population_tpu, pallas_engine) and the long-running fitting demos are
-exercised by their own suites/scripts instead.
+each CPU-safe example end-to-end. The mesh example (population_mesh)
+and the long-running fitting demos are exercised by their own
+suites/scripts instead.
 """
 
 import runpy

@@ -1,6 +1,6 @@
 """Differentiable log-likelihood surface (Equation.log_likelihood_fn).
 
-A TPU/JAX-native capability with no reference counterpart: the Rust
+A JAX-native capability with no reference counterpart: the Rust
 engine (LAPKB/pharmsol) cannot autodiff its simulations. The analytical
 engine (lax.scan segment march) and the exact ``expm`` ODE solver are
 reverse-mode differentiable end-to-end; adaptive solvers integrate under

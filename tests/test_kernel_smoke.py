@@ -1,22 +1,21 @@
-"""Quick-gate kernel smoke: one minimal interpret-mode parity test per
-fused pallas tier.
+"""Quick-gate engine smoke: one tiny psi parity case per engine family.
 
-Round-5 (VERDICT item 6): every heavy pallas parity file carries the
-module-level ``slow`` marker, so the default pre-land gate exercised no
-fused-kernel code at all — a broken kernel constant would only surface
-in the ~4 h slow tier or on-chip smoke.  This file promotes ONE tiny
-parity case per kernel family into the quick gate (budget: well under a
-minute per test at these sizes):
+Each case checks the XLA psi engine against an oracle that does not share
+its code path:
 
-  - analytical fused psi (ops/pallas_psi.py)
-  - ODE explicit tier, dopri5 merged march (ops/pallas_ode.py)
-  - ODE stiff tier, in-kernel SDIRK trbdf2 (ops/pallas_ode.py)
-  - SDE particle filter at zero diffusion (ops/pallas_sde.py)
-  - lag + tv-seq colplanes split-march (plans/decompose + pallas_psi)
+  - analytical 1-cmt oral: the closed form evaluated in numpy, with the
+    host-side error model (``AssayErrorModel.sigma_from_value``);
+  - ODE explicit (dopri5) and stiff (trbdf2) solvers: the analytical
+    engine on the same system;
+  - SDE particle filter at zero diffusion: the deterministic analytical
+    engine;
+  - lag + time-varying-covariate seq: a numpy march over the segments.
 
-The full coverage matrix stays in the slow-tier files; these exist only
-so the quick gate fails when a kernel regresses.
+The heavy coverage matrix lives in the slow-tier files; these exist so
+the quick gate fails when an engine family regresses.
 """
+
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -34,76 +33,94 @@ from pharmsol_tpu import (
 from pharmsol_tpu.likelihood.matrix import log_likelihood_matrix
 from pharmsol_tpu.models.equation import ODE
 
+_OBS = (0.5, 2.0, 6.0)
+
+
+def _em():
+    return AssayErrorModel.additive(ErrorPoly(0.5, 0.1), 1.0)
+
 
 def _ems():
-    return AssayErrorModels().add(
-        0, AssayErrorModel.additive(ErrorPoly(0.5, 0.1), 1.0)
-    )
+    return AssayErrorModels().add(0, _em())
 
 
-def _subjects(n=4, obs=(0.5, 2.0, 6.0)):
+def _values(i):
+    return [float(5 * np.exp(-0.2 * t) + 0.1 * i) for t in _OBS]
+
+
+def _subjects(n=4):
     out = []
     for i in range(n):
         sb = Subject.builder(f"s{i}").bolus(0.0, 100.0, 0)
-        for t in obs:
-            sb = sb.observation(t, float(5 * np.exp(-0.2 * t) + 0.1 * i), 0)
+        for t, y in zip(_OBS, _values(i)):
+            sb = sb.observation(t, y, 0)
         out.append(sb.build())
     return Data(out)
 
 
-def _check(model, data, sp, tol, **kw):
-    x = log_likelihood_matrix(model, data, sp, _ems(), engine="xla")
-    p = log_likelihood_matrix(model, data, sp, _ems(), engine="pallas")
-    err = np.max(np.abs(p - x) / np.maximum(np.abs(x), 1.0))
-    assert err < tol, err
+def _oral_sp(seed):
+    rng = np.random.RandomState(seed)
+    return np.column_stack([
+        rng.uniform(0.8, 2.0, 4), rng.uniform(0.1, 0.3, 4),
+        rng.uniform(8, 15, 4),
+    ])
 
 
-def test_smoke_analytical_psi():
-    rng = np.random.RandomState(0)
-    model = Analytical(
+def _oral_analytical():
+    return Analytical(
         pst.one_compartment_with_absorption,
         out=lambda x, p, t, cov: x[1:2] / p[2],
         nstates=2, ndrugs=1, nout=1,
     )
-    sp = np.column_stack([
-        rng.uniform(0.8, 2.0, 4), rng.uniform(0.1, 0.3, 4),
-        rng.uniform(8, 15, 4),
-    ])
-    _check(model, _subjects(), sp, 1e-9)
 
 
-def test_smoke_ode_dopri5():
-    rng = np.random.RandomState(1)
-    ode = ODE(
+def _oral_ode():
+    return ODE(
         lambda x, p, t, b, rateiv, cov: jnp.stack(
             [-p[0] * x[0] + b[0], p[0] * x[0] - p[1] * x[1]]
         ),
         out=lambda x, p, t, cov: x[1:2] / p[2],
         nstates=2, ndrugs=1, nout=1,
     )
-    sp = np.column_stack([
-        rng.uniform(0.8, 2.0, 4), rng.uniform(0.1, 0.3, 4),
-        rng.uniform(8, 15, 4),
-    ])
-    # merged-vs-XLA ODE parity is accuracy-level (~rtol), never tighten
-    # below ~1e-4 (CLAUDE.md)
-    _check(ode, _subjects(), sp, 1e-4)
+
+
+def _rel(got, want):
+    return float(np.max(np.abs(got - want) / np.maximum(np.abs(want), 1.0)))
+
+
+def test_smoke_analytical_psi():
+    sp = _oral_sp(0)
+    got = log_likelihood_matrix(_oral_analytical(), _subjects(), sp, _ems(),
+                                engine="xla")
+    em = _em()
+    want = np.zeros((4, 4))
+    for i in range(4):
+        for j, (ka, ke, v) in enumerate(sp):
+            for t, y in zip(_OBS, _values(i)):
+                pred = 100.0 * ka / (ka - ke) * (
+                    math.exp(-ke * t) - math.exp(-ka * t)) / v
+                sigma = em.sigma_from_value(y)
+                want[i, j] += -0.5 * (math.log(2 * math.pi)
+                                      + 2 * math.log(sigma)
+                                      + ((y - pred) / sigma) ** 2)
+    assert _rel(got, want) < 1e-9
+
+
+def test_smoke_ode_dopri5():
+    sp = _oral_sp(1)
+    want = log_likelihood_matrix(_oral_analytical(), _subjects(), sp, _ems())
+    got = log_likelihood_matrix(
+        _oral_ode().with_tolerances(1e-10, 1e-10), _subjects(), sp, _ems())
+    assert _rel(got, want) < 1e-6
 
 
 def test_smoke_ode_stiff_trbdf2():
-    rng = np.random.RandomState(2)
-    ode = ODE(
-        lambda x, p, t, b, rateiv, cov: jnp.stack(
-            [-p[0] * x[0] + b[0], p[0] * x[0] - p[1] * x[1]]
-        ),
-        out=lambda x, p, t, cov: x[1:2] / p[2],
-        nstates=2, ndrugs=1, nout=1,
-    ).with_solver("trbdf2")
-    sp = np.column_stack([
-        rng.uniform(0.8, 2.0, 4), rng.uniform(0.1, 0.3, 4),
-        rng.uniform(8, 15, 4),
-    ])
-    _check(ode, _subjects(), sp, 1e-3)
+    sp = _oral_sp(2)
+    want = log_likelihood_matrix(_oral_analytical(), _subjects(), sp, _ems())
+    got = log_likelihood_matrix(
+        _oral_ode().with_solver("trbdf2").with_tolerances(1e-8, 1e-8),
+        _subjects(), sp, _ems())
+    assert _rel(got, want) < 1e-4
 
 
 def test_smoke_sde_zero_diffusion():
@@ -113,9 +130,43 @@ def test_smoke_sde_zero_diffusion():
         out=lambda x, p, t, cov: x[0:1] / p[1],
         nparticles=8, nstates=1, ndrugs=1, nout=1, seed=3,
     )
+    det = Analytical(pst.one_compartment,
+                     out=lambda x, p, t, cov: x[:1] / p[1],
+                     nstates=1, ndrugs=1, nout=1)
     rng = np.random.default_rng(4)
     sp = np.column_stack([rng.uniform(0.2, 0.6, 4), rng.uniform(8, 14, 4)])
-    _check(sde, _subjects(), sp, 1e-9)
+    want = log_likelihood_matrix(det, _subjects(), sp, _ems())
+    got = log_likelihood_matrix(sde, _subjects(), sp, _ems())
+    # identical particles: only the Euler-Maruyama stepper's own error
+    # class separates the two
+    assert _rel(got, want) < 0.05
+
+
+def _lagged_seq_ll(sp_row, w_before, w_after, values, em):
+    """numpy oracle: 1-cmt oral, dose lagged by p[3], ke scaled by the
+    carry-forward weight (55 -> 62 at t=4); the engine holds each
+    segment's parameters at the covariate value of the segment's end."""
+    ka, ke0, v, lag = sp_row
+    times = sorted({0.0, float(lag), 4.0, *_OBS})
+    x = np.zeros(2)
+    pred = {}
+    for a, b in zip(times[:-1], times[1:]):
+        if a == lag:
+            x[0] += 100.0
+        ke = ke0 * ((w_before if b < 4.0 else w_after) / 70.0) ** 0.75
+        dt = b - a
+        x = np.array([
+            x[0] * math.exp(-ka * dt),
+            x[1] * math.exp(-ke * dt) + ka * x[0] / (ka - ke)
+            * (math.exp(-ke * dt) - math.exp(-ka * dt)),
+        ])
+        pred[b] = x[1] / v
+    ll = 0.0
+    for t, y in zip(_OBS, values):
+        sigma = em.sigma_from_value(y)
+        ll += -0.5 * (math.log(2 * math.pi) + 2 * math.log(sigma)
+                      + ((y - pred[t]) / sigma) ** 2)
+    return ll
 
 
 def test_smoke_lag_tv_seq_colplanes():
@@ -129,16 +180,24 @@ def test_smoke_lag_tv_seq_colplanes():
         lag=lambda p, t, cov: {0: p[3]},
         nstates=2, ndrugs=1, nout=1,
     )
-    subs = []
+    subs, weights, values = [], [], []
     for i in range(4):
+        w = (55.0 + 4.0 * i, 62.0 + 3.0 * i)
+        ys = [float(4 * np.exp(-0.25 * t) + 0.1 * i) for t in _OBS]
         sb = (Subject.builder(f"s{i}").bolus(0.0, 100.0, 0)
-              .covariate("wt", 0.0, 55.0 + 4.0 * i)
-              .covariate("wt", 4.0, 62.0 + 3.0 * i))
-        for t in (0.5, 2.0, 6.0):
-            sb = sb.observation(t, float(4 * np.exp(-0.25 * t) + 0.1 * i), 0)
+              .covariate("wt!", 0.0, w[0]).covariate("wt!", 4.0, w[1]))
+        for t, y in zip(_OBS, ys):
+            sb = sb.observation(t, y, 0)
         subs.append(sb.build())
+        weights.append(w)
+        values.append(ys)
     sp = np.column_stack([
         rng.uniform(0.8, 2.0, 4), rng.uniform(0.1, 0.3, 4),
         rng.uniform(8, 15, 4), rng.uniform(0.1, 1.2, 4),
     ])
-    _check(model, Data(subs), sp, 1e-9)
+    got = log_likelihood_matrix(model, Data(subs), sp, _ems())
+    want = np.array([
+        [_lagged_seq_ll(row, *weights[i], values[i], _em()) for row in sp]
+        for i in range(4)
+    ])
+    assert _rel(got, want) < 1e-9

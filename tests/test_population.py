@@ -128,6 +128,35 @@ def test_sharded_psi_matches_unsharded():
     np.testing.assert_allclose(psi_sharded, psi_ref, rtol=1e-10)
 
 
+@pytest.mark.parametrize("shape", [(4, 1), (2, 2), (1, 4)])
+def test_sharded_psi_four_devices(shape):
+    # the four-card layout of chip_smoke.py --four-cards, on virtual CPU
+    # devices: every mesh shape gives the unsharded psi, and the occasion
+    # rows really land on all four devices
+    import jax
+
+    from pharmsol_tpu.parallel.mesh import (
+        log_likelihood_matrix_sharded,
+        population_mesh,
+        shard_population,
+    )
+
+    devices = jax.devices()[:4]
+    subjects = build_population(7)
+    model = one_cmt_model()
+    support = np.array([[0.1, 1.0], [0.2, 1.5], [0.3, 2.0]])
+    ems = AssayErrorModels().add(0, AssayErrorModel.additive(ErrorPoly(0.5, 0.1), 1.0))
+
+    mesh = population_mesh(shape=shape, devices=devices)
+    psi_ref = log_likelihood_matrix(model, Data(subjects), support, ems)
+    psi_sharded = log_likelihood_matrix_sharded(
+        model, Data(subjects), support, ems, mesh=mesh
+    )
+    np.testing.assert_allclose(psi_sharded, psi_ref, rtol=1e-12)
+    rows, _, _ = shard_population(model.lower(subjects), mesh)
+    assert rows.obs_t.sharding.device_set == set(devices)
+
+
 def test_sharded_batch_ll_matches_unsharded():
     import jax
 

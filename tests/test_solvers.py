@@ -81,8 +81,7 @@ def test_f32_runaway_lane_poisons_fast(solver):
 
     Without the no-progress stall guard the controller shrinks h below
     ulp(t), t + h == t, and the while loop runs all 10k max_steps doing
-    nothing — under vmap at population scale that stalls the whole batch
-    and trips the TPU watchdog (observed as a worker crash).
+    nothing — under vmap at population scale that stalls the whole batch.
     """
     from pharmsol_tpu.engine.ode import _SEGMENT_SOLVERS, ODEOptions
 

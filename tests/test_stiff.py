@@ -207,32 +207,3 @@ def test_tsit5_trbdf2_tableau_order_conditions():
     assert (
         abs(sum(b * c * c for b, c in zip(_TRBDF2_BHAT, _TRBDF2_C)) - 1.0 / 3.0) < 1e-12
     )
-
-
-@pytest.mark.parametrize("solver", ["bdf", "kvaerno3", "trbdf2", "kvaerno5"])
-def test_tmdd_pallas_psi_matches_xla(solver):
-    # the fused stiff psi tiers (in-kernel SDIRK and variable-order BDF)
-    # on the genuinely stiff TMDD corpus: accuracy-level parity vs the
-    # XLA implicit engine at the default tolerances
-    from pharmsol_tpu.data.error_model import (
-        AssayErrorModel, AssayErrorModels, ErrorPoly,
-    )
-    from pharmsol_tpu.data.structs import Data
-    from pharmsol_tpu.likelihood.matrix import log_likelihood_matrix
-
-    model = _tmdd_model(solver)
-    b = Subject.builder("tmdd").bolus(0.0, 100.0, 0)
-    for t in (0.1, 0.5, 1.0, 2.0, 5.0, 10.0):
-        b = b.observation(t, float(10 * np.exp(-0.2 * t)), 0)
-    rng = np.random.default_rng(13)
-    base = np.array(TMDD_PARAMS)
-    sp = np.abs(base[None, :] * (1.0 + 0.1 * rng.standard_normal((6, 7))))
-    ems = AssayErrorModels().add(
-        0, AssayErrorModel.additive(ErrorPoly(0.5, 0.1), 1.0)
-    )
-    px = log_likelihood_matrix(model, Data([b.build()]), sp, ems,
-                               engine="xla")
-    pp = log_likelihood_matrix(model, Data([b.build()]), sp, ems,
-                               engine="pallas")
-    rel = np.max(np.abs(pp - px) / np.maximum(np.abs(px), 1.0))
-    assert rel < 1e-3, rel
